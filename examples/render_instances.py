@@ -1,8 +1,8 @@
 """Instancing demo: a ring of dragons from ONE shared MeshAsset.
 
 Shows Scene.from_instances (scene/instancing.py): shared geometry placed
-under affine transforms, flattened into one fat-row table so the packet
-kernel traverses it at full speed.  Writes instances.png (+ optional
+under affine transforms, flattened into one BVH so the traversal walks a
+single table.  Writes instances.png (+ optional
 instances.pfm with --hdr).
 
     python examples/render_instances.py [--n 8] [--steps 64]

@@ -1,4 +1,5 @@
-"""Round-4 ADVICE fixes pinned by tests."""
+"""Review fixes pinned by tests: auto-exposure on black buffers, fog
+falloff validation and related edge cases."""
 
 import dataclasses
 import math
@@ -9,7 +10,7 @@ import pytest
 
 def test_auto_exposure_black_buffer_stays_black():
     """A near-black radiance buffer returns exposure 1.0 instead of the
-    key/eps ~1.8e5 gain that amplified residual noise (ADVICE r3)."""
+    key/eps ~1.8e5 gain that amplified residual noise."""
     from tyrant_tpu.ops.tonemap import auto_exposure
     assert auto_exposure(np.zeros((8, 8, 3), np.float32)) == 1.0
     assert auto_exposure(np.full((8, 8, 3), 1e-9, np.float32)) == 1.0

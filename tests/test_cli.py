@@ -155,7 +155,7 @@ def test_cli_info(capsys):
     assert "bvh.nodes:" in out
     assert "spheres: 7" in out
     assert "lights:" in out
-    assert "packet tables:" in out
+    assert "traversal: xla on cpu" in out
     assert "render config:" in out
 
 

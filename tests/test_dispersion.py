@@ -21,7 +21,7 @@ from tyrant_tpu.render import Renderer
 from tyrant_tpu.scene.scene import Scene
 
 from .test_render_golden import (H, SUN_POS, W, cluster_camera, compare,
-                                 default_oracle_scene, run_oracle, run_tpu)
+                                 default_oracle_scene, run_oracle, run_jax)
 
 
 def test_config_validation():

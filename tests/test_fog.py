@@ -263,7 +263,7 @@ def test_fog_scene_matches_oracle(falloff):
         small_config(width=W, height=H, num_rays=1 << 14), **fog)
     r = Renderer(Scene.load(None), cfg, sun_position=SUN_POS, donate=False)
     r.step(cam, 60)
-    acc_tpu = np.asarray(r.state.accum)
+    acc_jax = np.asarray(r.state.accum)
     acc_or = oracle.render_oracle(
         default_oracle_scene(), cam.position.astype(float),
         cam.direction.astype(float),
@@ -271,7 +271,7 @@ def test_fog_scene_matches_oracle(falloff):
         _sun_dir(), seed=1,
         fog=(fog["fog_sigma_s"], fog["fog_sigma_a"], fog["fog_g"],
              fog["fog_z_min"], fog["fog_z_max"], fog["fog_falloff"]))
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)
 
 
 def _sun_dir():

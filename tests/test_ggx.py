@@ -18,7 +18,7 @@ from tyrant_tpu.scene.scene import GGX, LIGHT, SPEC, Scene, Spheres
 
 from . import oracle
 from .test_render_golden import (SUN_POS, cluster_camera, compare,
-                                 default_oracle_scene, run_oracle, run_tpu)
+                                 default_oracle_scene, run_oracle, run_jax)
 
 
 def _albedo_mc(rough, cos_v, n=1 << 17, seed=0):
@@ -142,7 +142,7 @@ def test_ggx_triangles_render_finite():
     assert dev.has_ggx is True
     cam = cluster_camera()
     cam.vertical_angle = 0.15
-    acc, _ = run_tpu(sc, cam, steps=6, num_rays=1 << 12)
+    acc, _ = run_jax(sc, cam, steps=6, num_rays=1 << 12)
     assert np.isfinite(acc).all()
     assert (acc[:, 3] > 0).all()
 
@@ -189,9 +189,9 @@ def test_ggx_sphere_scene_matches_oracle():
     sp = _ggx_spheres(rough=0.4)
     scene = Scene.load(None, spheres=sp)
     cam = cluster_camera()
-    acc_tpu, cfg = run_tpu(scene, cam, steps=60)
+    acc_jax, cfg = run_jax(scene, cam, steps=60)
     rows = [(sp.radius[i], sp.center[i], sp.color[i], sp.emission[i],
              sp.refl[i]) for i in range(sp.count)]
     osc = oracle.OracleScene(rows, light_index=6, roughness=sp.roughness)
     acc_or = run_oracle(osc, cam, 1500, cfg)
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)

@@ -93,7 +93,7 @@ def test_mis_matches_oracle_mis():
     sp = _ggx_light_spheres(rough=0.25)
     cam = cluster_camera()
     cfg = _mis_cfg(mis="on")
-    acc_tpu = _run(Scene.load(None, spheres=sp), cam, 60, cfg)
+    acc_jax = _run(Scene.load(None, spheres=sp), cam, 60, cfg)
     rows = [(sp.radius[i], sp.center[i], sp.color[i], sp.emission[i],
              sp.refl[i]) for i in range(sp.count)]
     osc = oracle.OracleScene(rows, light_index=6, roughness=sp.roughness)
@@ -106,7 +106,7 @@ def test_mis_matches_oracle_mis():
         osc, cam.position.astype(float), cam.direction.astype(float),
         right.astype(float), up.astype(float), W, H, 1500,
         sun_dir.astype(float), seed=1, mis=True)
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)
 
 
 

@@ -35,7 +35,7 @@ def cluster_camera():
     return cam
 
 
-def run_tpu(scene: Scene, cam: Camera, steps: int, num_rays=1 << 14):
+def run_jax(scene: Scene, cam: Camera, steps: int, num_rays=1 << 14):
     cfg = small_config(width=W, height=H, num_rays=num_rays)
     r = Renderer(scene, cfg, sun_position=SUN_POS, donate=False)
     r.step(cam, steps)
@@ -66,10 +66,10 @@ def compare(acc_a, acc_b, tol_mean=0.04, tol_px=0.12):
 @pytest.mark.slow
 def test_spheres_scene_matches_oracle():
     cam = cluster_camera()
-    acc_tpu, cfg = run_tpu(Scene.load(None), cam, steps=60)
+    acc_jax, cfg = run_jax(Scene.load(None), cam, steps=60)
     # ~60 steps * 16384 rays / 576 px ≈ 1700 paths/px
     acc_or = run_oracle(default_oracle_scene(), cam, 1500, cfg)
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)
 
 
 @pytest.mark.slow
@@ -82,15 +82,15 @@ def test_triangle_scene_matches_oracle():
     cam = cluster_camera()
     cam.vertical_angle = 0.15  # look up toward the quad
     sc = Scene.from_triangles(v0, v1, v2, builder="numpy")
-    acc_tpu, cfg = run_tpu(sc, cam, steps=60)
+    acc_jax, cfg = run_jax(sc, cam, steps=60)
     tris = (sc.tri_vert, sc.tri_e1, sc.tri_e2)
     acc_or = run_oracle(default_oracle_scene(tris=tris), cam, 1500, cfg)
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)
 
 
 def test_render_finite_and_progressive():
     cam = cluster_camera()
-    acc, cfg = run_tpu(Scene.load(None), cam, steps=8, num_rays=1 << 12)
+    acc, cfg = run_jax(Scene.load(None), cam, steps=8, num_rays=1 << 12)
     assert np.isfinite(acc).all()
     assert (acc[:, 3] > 0).all()  # every pixel completed some paths
     img = np.asarray(resolve(jnp.asarray(acc), W, H))
@@ -119,14 +119,14 @@ def test_two_light_scene_matches_oracle():
     scene = Scene.load(None, spheres=spheres)
     assert scene.to_device().light_indices == (6, 7)
     cam = cluster_camera()
-    acc_tpu, cfg = run_tpu(scene, cam, steps=60)
+    acc_jax, cfg = run_jax(scene, cam, steps=60)
     rows = [(spheres.radius[i], spheres.center[i], spheres.color[i],
              spheres.emission[i], spheres.refl[i])
             for i in range(spheres.count)]
     osc = oracle.OracleScene(rows, light_index=6)
     assert osc.light_indices == [6, 7]
     acc_or = run_oracle(osc, cam, 1500, cfg)
-    compare(acc_tpu, acc_or)
+    compare(acc_jax, acc_or)
 
 
 def test_second_light_illuminates_diffuse_paths():
@@ -134,8 +134,8 @@ def test_second_light_illuminates_diffuse_paths():
     nearly invisible to diffuse paths; the multi-light estimator must
     brighten pixels facing it."""
     cam = cluster_camera()
-    acc_one, cfg = run_tpu(Scene.load(None), cam, steps=12, num_rays=1 << 13)
-    acc_two, _ = run_tpu(Scene.load(None, spheres=_two_light_spheres()), cam,
+    acc_one, cfg = run_jax(Scene.load(None), cam, steps=12, num_rays=1 << 13)
+    acc_two, _ = run_jax(Scene.load(None, spheres=_two_light_spheres()), cam,
                          steps=12, num_rays=1 << 13)
     img_one = np.asarray(resolve(jnp.asarray(acc_one), W, H))
     img_two = np.asarray(resolve(jnp.asarray(acc_two), W, H))

@@ -54,28 +54,28 @@ def test_sharded_matches_single_device_statistically():
     assert diff.mean() < 0.04, diff.mean()
 
 
-def test_sharded_packet_path_runs_in_interpret_mode():
-    """The packet-kernel fast path INSIDE shard_map (VERDICT r2: this path
-    previously had no execution evidence on any backend).  On the CPU test
-    mesh the Pallas kernel runs in interpret mode, but the surrounding
-    plumbing — fat-row table replication through shard_map, ray padding,
-    BlockSpecs, scratch shapes, the parity-split connect — is exactly what
-    the compiled TPU path uses."""
+def test_sharded_kernel_path_runs_with_host_build(monkeypatch):
+    """The kernel path INSIDE shard_map: with the traversal forced to the
+    kernels, the CPU mesh runs their host build (ops/cuda/traverse_cpu.cc)
+    through the same FFI wrapper the GPU path calls, per shard with the
+    scene replicated and shard_map's varying-axes check on — and renders
+    what the cascade renders."""
     v0 = np.array([[-30, -90, 60], [30, -70, 60]], np.float32)
     v1 = np.array([[30, -90, 60], [-30, -90, 60]], np.float32)
     v2 = np.array([[30, -70, 60], [-30, -70, 60]], np.float32)
     scene = Scene.from_triangles(v0, v1, v2, builder="numpy")
-    import dataclasses
-    cfg = dataclasses.replace(small_config(width=16, height=16,
-                                           num_rays=1 << 11),
-                              use_packet_kernel="on")
+    cfg = small_config(width=16, height=16, num_rays=1 << 11)
+    ref = sharded.ShardedRenderer(scene, cfg)
+    ref.step(_cam(), 2)
+    monkeypatch.setattr(sharded, "traversal_for", lambda devices: "cuda")
     r = sharded.ShardedRenderer(scene, cfg)
-    assert r.packet_tables is not None, "packet tables must be active"
     r.step(_cam(), 2)
     acc = np.asarray(r.state.accum)
     assert acc.shape == (16 * 16, 4)
     assert np.isfinite(acc).all()
     assert (acc[:, 3] > 0).all()
+    np.testing.assert_allclose(acc, np.asarray(ref.state.accum),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_sharded_strips_cover_whole_image():

@@ -83,7 +83,6 @@ def test_obj_vt_mtl_parsing(tmp_path):
     sc = Scene.load(str(tmp_path / "quad.obj"), builder="numpy")
     sd = sc.to_device()
     assert sd.has_textures and len(sd.tex_meta) == 1
-    assert not sd.tri_default_mat
 
 
 def test_obj_without_mtl_still_loads(tmp_path):
@@ -146,8 +145,8 @@ def _shade_direct(scene):
     camd = cam.to_device(CFG)
     gen = _raygen(CFG, camd, jnp.asarray(0), jnp.asarray(1, jnp.uint32),
                   CFG.height, 0)
-    tt, ident, is_tri, _tn = _intersect_scene(gen["origin"],
-                                              gen["direction"], scene)
+    tt, ident, is_tri = _intersect_scene(gen["origin"],
+                                         gen["direction"], scene)
     _c, _t, _s, next_rays, _sh = _shade(
         CFG, scene, skymod.SkyParams(CFG.sky), SUN, gen, tt, ident, is_tri,
         jnp.asarray(1, jnp.uint32))
@@ -175,8 +174,8 @@ def test_constant_texture_equals_tri_color():
                   cfg_n.height, 0)
 
     def run(scene):
-        tt, ident, is_tri, _tn = _intersect_scene(gen["origin"],
-                                                  gen["direction"], scene)
+        tt, ident, is_tri = _intersect_scene(gen["origin"],
+                                             gen["direction"], scene)
         _c, _t, _s, nxt, _sh = _shade(
             cfg_n, scene, skymod.SkyParams(cfg_n.sky), SUN, gen, tt, ident,
             is_tri, jnp.asarray(1, jnp.uint32))

@@ -1,6 +1,5 @@
-"""Mip pyramid layout + trilinear sampler (round 4; ADVICE r3 item 3
-asked for the pyramid bookkeeping to be pinned, VERDICT r3 item 8 for the
-trilinear sampler itself)."""
+"""Mip pyramid layout + trilinear sampler: the pyramid bookkeeping and
+the trilinear sampler itself."""
 
 import numpy as np
 import pytest

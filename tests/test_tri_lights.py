@@ -73,8 +73,8 @@ def test_direct_hit_emission():
     camd = cam.to_device(CFG)
     gen = _raygen(CFG, camd, jnp.asarray(0), jnp.asarray(1, jnp.uint32),
                   CFG.height, 0)
-    t, ident, is_tri, _tn = _intersect_scene(gen["origin"],
-                                             gen["direction"], scene)
+    t, ident, is_tri = _intersect_scene(gen["origin"],
+                                        gen["direction"], scene)
     color, term, _s, _n, _sh = _shade(
         CFG, scene, skymod.SkyParams(CFG.sky), SUN, gen, t, ident, is_tri,
         jnp.asarray(1, jnp.uint32))
@@ -106,8 +106,8 @@ def test_nee_matches_quadrature():
 
     @jax.jit
     def direct_once(f):
-        t, ident, is_tri, _tn = _intersect_scene(rays["origin"],
-                                                 rays["direction"], scene)
+        t, ident, is_tri = _intersect_scene(rays["origin"],
+                                            rays["direction"], scene)
         _c, _t, _s, _n, shadow = _shade(
             CFG, scene, skymod.SkyParams(CFG.sky), SUN, rays, t, ident,
             is_tri, f)

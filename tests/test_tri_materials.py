@@ -40,7 +40,7 @@ def _run_shade(refl_type, color):
     camd = cam.to_device(CFG)
     gen = _raygen(CFG, camd, jnp.asarray(0), jnp.asarray(1, jnp.uint32),
                   CFG.height, 0)
-    tt, ident, is_tri, _tn = _intersect_scene(gen["origin"], gen["direction"], scene)
+    tt, ident, is_tri = _intersect_scene(gen["origin"], gen["direction"], scene)
     color_out, terminated, survive, next_rays, shadow = _shade(
         CFG, scene, skymod.SkyParams(CFG.sky), SUN, gen, tt, ident, is_tri,
         jnp.asarray(1, jnp.uint32))

@@ -60,33 +60,25 @@ def test_missing_scene_degrades(tmp_path, capsys):
     assert sc.stats["nodes"] == 0
 
 
-def test_packet_kernel_mode_selection():
-    """'auto' picks the kernel generation PER STAGE for HBM-resident
-    tables (round-4 in-step square, docs/PERFORMANCE.md: extend=mono,
-    connect=wave, aov=wave) and mono everywhere for VMEM tables; forced
-    modes override; unknown values refuse."""
+def test_interactive_config_preset():
+    """The fly-through preset: a 128k wavefront at 1080p with fused step
+    chains; keyword arguments override or pass through, and the removed
+    kernel-selection fields are not accepted (kernel choice follows the
+    platform, ops.traverse.traversal_for)."""
     import pytest
 
-    from tyrant_tpu.config import RenderConfig
-    from tyrant_tpu.render import _WAVE_AUTO, _pick_wave
+    from tyrant_tpu.config import RenderConfig, interactive_config
 
-    with pytest.raises(ValueError, match="packet_kernel_mode"):
-        RenderConfig(packet_kernel_mode="nonsense")
-    for mode in ("auto", "mono", "wave", "wave-unsafe"):
-        RenderConfig(packet_kernel_mode=mode)
-
-    class _T:
-        def __init__(self, fits):
-            self.fits = fits
-
-    auto = RenderConfig(packet_kernel_mode="auto")
-    for stage in ("extend", "connect", "aov"):
-        assert _pick_wave(auto, None, stage) is False
-        assert _pick_wave(auto, _T(fits=True), stage) is False
-        assert _pick_wave(auto, _T(fits=False), stage) \
-            is _WAVE_AUTO[stage]
-    assert _WAVE_AUTO == {"extend": False, "connect": True, "aov": True}
-    assert _pick_wave(RenderConfig(packet_kernel_mode="mono"),
-                      _T(fits=False)) is False
-    assert _pick_wave(RenderConfig(packet_kernel_mode="wave"),
-                      _T(fits=True)) is True
+    cfg = interactive_config()
+    assert (cfg.width, cfg.height, cfg.num_rays) == (1920, 1080, 1 << 17)
+    assert cfg.fuse_step_chains == "auto" and cfg.max_bounces == 5
+    cfg = interactive_config(width=640, height=360, max_bounces=3,
+                             fuse_step_chains="off", mis="on")
+    assert (cfg.width, cfg.height, cfg.max_bounces) == (640, 360, 3)
+    assert cfg.fuse_step_chains == "off" and cfg.mis == "on"
+    for field in ("use_packet_kernel", "use_accum_kernel",
+                  "packet_kernel_mode", "use_kernel_normals",
+                  "adaptive_connect", "adaptive_connect_frac"):
+        assert not hasattr(RenderConfig(), field)
+        with pytest.raises(TypeError):
+            interactive_config(**{field: "on"})

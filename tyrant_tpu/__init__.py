@@ -1,7 +1,8 @@
-"""tyrant_tpu — a TPU-native wavefront Monte-Carlo path tracer.
+"""tyrant_tpu — a wavefront Monte-Carlo path tracer in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the CUDA renderer
-stijnherfst/Tyrant (see SURVEY.md): progressive interactive path tracing with
+A JAX rebuild of the capabilities of the CUDA renderer stijnherfst/Tyrant
+(see SURVEY.md), with CUDA BVH traversal kernels on NVIDIA GPUs
+(ops/cuda): progressive interactive path tracing with
 a binned-SAH BVH, five BSDFs, next-event estimation against a dynamic sun/sky
 atmosphere and an area light, Russian-roulette path termination, depth of
 field, stratified sampling, and cross-step path continuation — expressed as

@@ -22,8 +22,8 @@ the summed per-pixel variance under a fixed ray budget the optimum is
 ``n_i proportional to sigma_i``, i.e. gamma=1 over the standard-error
 estimate).  The permutation is the inverse CDF of the weights sampled at
 P equispaced points — which also makes it MONOTONIC in pixel id, so
-raygen's visit order stays raster-coherent (the packet-coherence property
-the uniform scan had).  A golden-ratio phase jitter per rebuild rotates
+raygen's visit order stays raster-coherent (the coherence property the
+uniform scan had).  A golden-ratio phase jitter per rebuild rotates
 which fractional slots round up, so low-weight pixels cycle rather than
 starve.  The per-pixel estimator (radiance sum / path count, resolved in
 ops/tonemap.py) is unbiased under ANY visit schedule, so adaptive
@@ -32,7 +32,7 @@ sampling changes variance distribution, never the converged image.
 An earlier power-law-over-error-RANK allocation measured 0.98x (no win):
 it over-concentrated on the top ranks (1124 visits on one pixel buys
 1/sqrt(n) almost nothing) while starving the bulk — allocation must track
-the error MAGNITUDES, not their order (scripts/adaptive_demo.py).
+the error MAGNITUDES, not their order.
 """
 
 from __future__ import annotations

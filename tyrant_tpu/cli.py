@@ -257,7 +257,7 @@ def _autofocus(renderer, cam, cfg, fx: float, fy: float) -> None:
     from .render import VERY_FAR, render_aovs
 
     aovs = render_aovs(renderer.scene, cam.to_device(cfg), cfg,
-                       packet_tables=renderer.packet_tables)
+                       renderer.traversal)
     px = min(max(int(fx * cfg.width), 0), cfg.width - 1)
     py = min(max(int(fy * cfg.height), 0), cfg.height - 1)
     d = float(aovs["depth"][py, px])
@@ -444,7 +444,7 @@ def cmd_anim(args):
         if f == 0 and str(getattr(args, "exposure", 1.0)) == "auto":
             # key the photographic exposure off the FIRST frame only and
             # hold it for the whole sequence — a per-frame key would pump
-            # brightness as the camera sweeps (flicker); ADVICE r3
+            # brightness as the camera sweeps (flicker)
             import dataclasses as _dc
             from .ops.tonemap import auto_exposure
             ex = auto_exposure(r.radiance())
@@ -466,7 +466,7 @@ def cmd_bench(args):
     if str(getattr(args, "exposure", 1.0)) == "auto":
         # bench never resolves an image, so an exposure key would be
         # computed from nothing — refuse instead of silently rendering
-        # the shared flag meaningless (ADVICE r3)
+        # the shared flag meaningless
         sys.exit("--exposure auto is not meaningful for 'bench' "
                  "(no image is resolved); pass a numeric exposure")
     cfg, scene, _ = _build(args)
@@ -524,13 +524,9 @@ def cmd_info(args):
                     for x in jax.tree.leaves(sd)
                     if hasattr(x, "size"))
     print(f"  device memory (scene tables): {dev_bytes / 1e6:.1f} MB")
-    from .ops.pallas.traverse_kernel import PacketTables
-    try:
-        pt = PacketTables(sd.bvh)
-        print(f"  packet tables: rows {tuple(pt.rows.shape)} "
-              f"fits_vmem={pt.fits} supported={pt.supported}")
-    except Exception as e:  # diagnostic command: report, don't die
-        print(f"  packet tables: unavailable ({e})")
+    from .ops.traverse import traversal_for
+    print(f"  traversal: {traversal_for(jax.devices())} "
+          f"on {jax.devices()[0].platform}")
     st_bytes = (cfg.num_rays * (13 * 4) + cfg.num_pixels * 16)
     print(f"render config: {cfg.width}x{cfg.height}, {cfg.num_rays} rays, "
           f"{cfg.max_bounces} bounces (~{st_bytes / 1e6:.0f} MB state)")
@@ -577,11 +573,8 @@ def _write_hdr(path, img):
 
 
 def _write_png(path, img):
-    try:
-        from PIL import Image
-        Image.fromarray(img).save(path)
-    except ImportError:
-        np.save(path + ".npy", img)
+    from .utils.png import write_png
+    write_png(path, img)
 
 
 def main(argv=None):
@@ -662,6 +655,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_bvh_debug)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -8,9 +8,8 @@ edge-stopped by the NOISE-FREE feature buffers from
 demodulated by albedo first so texture detail is preserved exactly and
 only irradiance is smoothed, then remodulated.
 
-TPU mapping: every tap is a static shift of the whole image (25 taps x N
-iterations of pure VPU elementwise work, no gathers — `jnp.pad` 'edge' +
-static slices).  A 1080p 5-iteration filter is a few ms of dense math,
+Every tap is a static shift of the whole image (25 taps x N iterations of
+pure elementwise work, no gathers — `jnp.pad` 'edge' + static slices).  A 1080p 5-iteration filter is a few ms of dense math,
 fully fused by XLA.
 
 Reference technique: Dammertz et al., "Edge-Avoiding À-Trous Wavelet

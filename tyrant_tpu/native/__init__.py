@@ -3,7 +3,7 @@
 The reference's host layer is all C++ (SURVEY.md §2.2); here the serial,
 pointer-heavy, per-scene-load work (SAH build bvh.cpp:61-212, mesh import
 Scene.cpp/static_mesh.cpp) stays native while the compute path is
-JAX/XLA/Pallas.  Bindings are ctypes over a plain C ABI (no pybind11 in this
+JAX/XLA (plus the CUDA traversal kernels of ops/cuda).  Bindings are ctypes over a plain C ABI (no pybind11 in this
 image); the shared library is compiled on first use with g++ and cached next
 to the sources.
 """

@@ -1,12 +1,12 @@
 """Vectorised, stateless xorshift RNG.
 
 The reference threads a mutable ``unsigned int& seed`` through every device
-function (kernel.cu:23-65, "Xorshift RNGs" by Marsaglia).  The TPU rebuild
+function (kernel.cu:23-65, "Xorshift RNGs" by Marsaglia).  This rebuild
 keeps the same generator *distributions* but makes the state explicit and
 batched: every function takes a ``uint32`` seed array and returns
 ``(new_seed, value)`` — the functional-carry equivalent of the reference's
 by-reference mutation.  All ops are element-wise over arbitrary batch shapes,
-so they vectorise onto the VPU.
+so they vectorise.
 
 Seed initialisation intentionally does NOT copy the reference's
 ``(frame * 147565741) * 720898027 * index`` (kernel.cu:258) because that

@@ -2,7 +2,7 @@
 
 Reference: kernel.cu:648-662 ``blit_onto_framebuffer`` — per pixel:
 ``cl = rgb / a`` (a = completed-path count), Reinhard ``cl / (cl + 1)``,
-gamma 1/2.2, written to the GL surface.  On TPU the resolve is a pure
+gamma 1/2.2, written to the GL surface.  Here the resolve is a pure
 function from the accumulation buffer to a display/PNG image.
 """
 
@@ -83,8 +83,8 @@ def auto_exposure(radiance, key: float = 0.18, eps: float = 1e-6,
 
     A near-black buffer (log-average luminance below ``key/max_gain``)
     returns 1.0 instead of the astronomical key/eps gain that would
-    amplify residual noise to full brightness — black frames stay black
-    (ADVICE r3)."""
+    amplify residual noise to full brightness — black frames stay
+    black."""
     r = jnp.asarray(radiance, jnp.float32)
     lum = (0.2126 * r[..., 0] + 0.7152 * r[..., 1] + 0.0722 * r[..., 2])
     log_avg = float(jnp.exp(jnp.mean(jnp.log(lum + eps))))

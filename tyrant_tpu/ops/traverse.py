@@ -1,42 +1,37 @@
-"""Stackless threaded-BVH traversal (pure jnp, dense ray batches).
+"""Stackless threaded-BVH traversal in plain JAX (dense ray batches): the
+cascade.
 
-TPU-native replacement for the reference's 64-entry per-thread stack
-traversal (bvh.h:118-161 ``CachedBVH::intersect``, bvh.h:213-256
-``intersectSimple``).  Per-ray state is a single node index; the next node is
-a table lookup into precomputed per-octant hit/miss links
-(:func:`tyrant_tpu.scene.bvh.thread_links`), so the whole batch advances in
-lock-step ``lax.while_loop`` iterations of dense gathers + slab tests —
-no per-lane stack.
+A replacement for the reference's 64-entry per-thread stack traversal
+(bvh.h:118-161 ``CachedBVH::intersect``, bvh.h:213-256
+``intersectSimple``) written as array operations.  Per-ray state is a
+single node index; the next node is a table lookup into precomputed
+per-octant hit/miss links (:func:`tyrant_tpu.scene.bvh.thread_links`), so
+the whole batch advances in lock-step ``lax.while_loop`` iterations of
+dense gathers + slab tests — no per-lane stack.
 
-Performance design (measured on v5e, see docs/PERFORMANCE.md):
   * One 32-byte packed node row per visit ([Nn, 8] f32 with meta/child
     bitcast into lanes) — the same cache-line layout as the reference's
-    ``static_assert(sizeof(BVHNode)==32)`` (bvh.h:68) — instead of five
-    separate gathers.
-  * Leaf triangles are packed LEAF_WIDTH-per-row ([L, 9*LEAF_WIDTH]) so a leaf visit
-    gathers ONE row; leaf work runs under ``lax.cond`` so iterations where
-    no ray in the batch sits at a leaf skip the gather entirely.
-  * Rays are processed in 16k chunks via ``lax.map`` so each chunk's
-    while_loop trip count adapts to ITS worst ray instead of the whole
-    batch's — the dense-batch answer to the reference's per-thread work
-    stealing (kernel.cu:211-224).
-
-This XLA path is the any-scene-size fallback and the semantic oracle; the
-Pallas packet kernel (ops/pallas/traverse_kernel.py) is the fast path.
+    ``static_assert(sizeof(BVHNode)==32)`` (bvh.h:68).
+  * Leaf triangles are packed LEAF_WIDTH-per-row ([L, 9*LEAF_WIDTH]) so a
+    leaf visit gathers ONE row; leaf work runs under ``lax.cond`` so
+    iterations where no ray in the batch sits at a leaf skip the gather.
+  * Rays are processed in CHUNK-sized chunks via ``lax.map`` so each
+    chunk's while_loop trip count adapts to ITS worst ray instead of the
+    whole batch's.
 
 Ordered near-child-first traversal (the reference's ``dirIsNeg[splitAxis]``
 trick, bvh.h:146-152) is preserved exactly: links are indexed by the ray's
 direction octant.  Early-out pruning against the current closest hit
 (Bbox.h:61) carries over unchanged.
 
-This is also the semantic oracle for the Pallas kernel
-(ops/pallas/traverse_kernel.py); both must agree bit-for-bit.
+This is the traversal on every platform but NVIDIA GPUs, where the CUDA
+kernels of :mod:`tyrant_tpu.ops.cuda` run instead
+(:func:`traversal_for`), and it is the semantic oracle for those kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -111,8 +106,7 @@ class BVHDevice:
         tri[:t, 6:9] = tri_e2[perm]
 
         # leaf-major packed rows: [L, 9*LEAF_WIDTH], so a leaf visit gathers
-        # ONE row (per-row gather cost dominates on TPU).  Empty slots point
-        # at a degenerate triangle.
+        # ONE row.  Empty slots point at a degenerate triangle.
         leaf_ids = np.nonzero(is_leaf)[0]
         n_leaves = max(len(leaf_ids), 1)
         tri9 = np.concatenate([tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]], axis=1)
@@ -320,12 +314,13 @@ def _chunk_any(origin, direction, max_dist, node0, bvh: BVHDevice):
     return occ
 
 
-# Chunk size: gathers are latency-bound below ~100k rows, and a chunk's
-# while_loop trip count adapts to ITS worst ray; 16k measured best on v5e.
+# Rays per lax.map chunk: a chunk's while_loop trip count adapts to ITS
+# worst ray.
 CHUNK = 16384
 
 
-def _map_chunks(fn, arrays, n, chunk=CHUNK):
+def _map_chunks(fn, arrays, n):
+    chunk = CHUNK
     if n > chunk and n % chunk == 0:
         c = n // chunk
         reshaped = tuple(a.reshape((c, chunk) + a.shape[1:]) for a in arrays)
@@ -392,3 +387,10 @@ def traversal_depth_map(origin, direction, bvh: BVHDevice):
               jnp.zeros((n,), jnp.int32))
     (node, t, hit_id), visits = jax.lax.while_loop(cond, body, state0)
     return t, hit_id, visits
+
+
+def traversal_for(devices) -> str:
+    """The one place the BVH traversal is chosen, from the platform of the
+    devices a step runs on: "cuda" (the kernels of :mod:`tyrant_tpu.ops.cuda`)
+    on NVIDIA GPUs, "xla" (this module's cascade) on every other platform."""
+    return "cuda" if devices[0].platform == "gpu" else "xla"

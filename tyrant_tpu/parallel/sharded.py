@@ -1,13 +1,14 @@
 """Multi-chip data-parallel rendering via shard_map over a device mesh.
 
 The reference is single-GPU (main.cpp:89-101 detects a second device but
-only prints).  The TPU-native scale-out story (SURVEY.md §2.3/§5): shard the
-*image* into per-device row strips; each device runs the full wavefront on
-its own strip with its own carried rays, start position and accumulation
-buffer — the scene (triangles + BVH, read-only after load) is replicated.
-There are NO collectives in the hot loop; the only cross-device operation is
-the framebuffer gather at display time (an all-gather over ICI, or simply a
-host fetch of the sharded array).
+only prints).  The scale-out here (SURVEY.md §2.3/§5): shard the *image*
+into per-device row strips; each device runs the full wavefront on its own
+strip with its own carried rays, start position and accumulation buffer —
+the scene (triangles + BVH, read-only after load) is replicated.  There are
+NO collectives in the hot loop; the only cross-device operation is the
+framebuffer gather at display time (an all-gather, or simply a host fetch
+of the sharded array).  On GPUs each shard runs the CUDA traversal kernels
+on its own card.
 
 State layout: every per-ray / per-pixel leaf gets a leading global axis
 sharded over the ``"shards"`` mesh axis; per-shard scalars (frame counter,
@@ -27,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .. import sky as skymod
 from ..camera import CameraParams
 from ..config import RenderConfig
+from ..ops.traverse import traversal_for
 from ..render import RenderState, render_step
 from ..scene.scene import SceneData
 
@@ -83,22 +85,17 @@ def init_sharded_state(cfg: RenderConfig, mesh: Mesh) -> RenderState:
 
 
 def make_sharded_step(cfg: RenderConfig, mesh: Mesh,
-                      sky_params: skymod.SkyParams | None = None,
-                      packet_tables=None):
+                      sky_params: skymod.SkyParams | None = None):
     """Returns jitted step(state, scene, camera, sun_dir) -> state operating
-    on the sharded global state.
-
-    ``packet_tables``: a PacketTables instance to run the Pallas packet
-    traversal on every device (the fat-row table is replicated — it is
-    read-only scene data, exactly like the BVH itself).  None -> XLA
-    cascade (the CPU-mesh test path)."""
+    on the sharded global state.  The traversal follows the platform of the
+    mesh's devices (ops.traverse.traversal_for)."""
     n_dev = mesh.devices.size
     local_h = cfg.height // n_dev
     sky_params = sky_params or skymod.SkyParams(cfg.sky)
-    tables_fit = None if packet_tables is None else packet_tables.fits
+    traversal = traversal_for(list(mesh.devices.flat))
 
     def local_step(state: RenderState, scene: SceneData, camera: CameraParams,
-                   sun_dir, table_rows):
+                   sun_dir):
         # leaves arrive with local shapes; scalars are length-1 slices
         st = RenderState(
             accum=state.accum, origin=state.origin, direction=state.direction,
@@ -113,15 +110,10 @@ def make_sharded_step(cfg: RenderConfig, mesh: Mesh,
             bsdf_pdf=state.bsdf_pdf,
             sample_base=state.sample_base[0],
             sample_idx=state.sample_idx)
-        if table_rows is not None:
-            import types
-            tables = types.SimpleNamespace(rows=table_rows, fits=tables_fit)
-        else:
-            tables = None
         row_offset = jax.lax.axis_index(AXIS).astype(jnp.int32) * local_h
         out = render_step(st, scene, camera, sun_dir, cfg=cfg,
                           sky_params=sky_params, local_height=local_h,
-                          row_offset=row_offset, packet_tables=tables)
+                          row_offset=row_offset, traversal=traversal)
         return RenderState(
             accum=out.accum, origin=out.origin, direction=out.direction,
             direct=out.direct, pending=out.pending,
@@ -136,41 +128,12 @@ def make_sharded_step(cfg: RenderConfig, mesh: Mesh,
             sample_base=out.sample_base[None],
             sample_idx=out.sample_idx)
 
-    try:
-        shard_map = jax.shard_map
-    except AttributeError:  # older jax
-        from jax.experimental.shard_map import shard_map  # type: ignore
-
     # spec prefixes: every state leaf sharded on its leading axis; scene,
-    # camera, sun direction and the packet table fully replicated.
-    # check_vma stays ON by default: round-2 shipped check_vma=False for
-    # literal-seeded lax.cond/while carries in ops/traverse.py ("output of
-    # true_fun has type int32[512]{V:shards} but ... false_fun has type
-    # int32[512]"); those carries now derive from the varying inputs, so
-    # the varying-manual-axes verification passes on the XLA path.
-    #
-    # Narrow exception: the INTERPRET-mode packet kernel (CPU test meshes
-    # only) still trips check_vma inside its leaf lax.cond — the pallas
-    # interpreter propagates vma inconsistently between a while-carry (kept
-    # varying) and values computed from ref reads (stripped to invariant):
-    # "output of true_fun at path [0] has type float32[8,128] but ...
-    # false_fun has type float32[8,128]{V:shards}".  Compiled TPU execution
-    # of the same program is unaffected (proven at speed by
-    # scripts/sharded_tpu_check.py), so the opt-out is scoped to the
-    # packet-tables case instead of blanket.
-    in_specs = (P(AXIS), P(), P(), P(), P())
-    kw = {"check_vma": False} if packet_tables is not None else {}
-    try:
-        sharded = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                            out_specs=P(AXIS), **kw)
-    except TypeError:  # older jax: check_rep instead of check_vma
-        kw = {"check_rep": False} if packet_tables is not None else {}
-        sharded = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                            out_specs=P(AXIS), **kw)
-    rows = None if packet_tables is None else packet_tables.rows
-    step = jax.jit(lambda state, scene, camera, sun_dir: sharded(
-        state, scene, camera, sun_dir, rows), donate_argnums=(0,))
-    return step
+    # camera and sun direction fully replicated
+    sharded = jax.shard_map(local_step, mesh=mesh,
+                            in_specs=(P(AXIS), P(), P(), P()),
+                            out_specs=P(AXIS))
+    return jax.jit(sharded, donate_argnums=(0,))
 
 
 def assemble_image(state: RenderState, cfg: RenderConfig):
@@ -192,20 +155,8 @@ class ShardedRenderer:
         self.scene = scene.to_device() if isinstance(scene, Scene) else scene
         self.sun_dir = skymod.sun_direction_from_position(
             jnp.asarray(sun_position, jnp.float32))
-        # same packet-kernel policy as render.Renderer: fast traversal on
-        # every chip of the mesh, XLA fallback on CPU test meshes
-        packet_tables = None
-        want_packets = cfg.use_packet_kernel == "on" or (
-            cfg.use_packet_kernel == "auto"
-            and jax.default_backend() not in ("cpu",))
-        if want_packets:
-            from ..ops.pallas.traverse_kernel import PacketTables
-            packet_tables = PacketTables(self.scene.bvh)
-            if not packet_tables.supported:
-                packet_tables = None
-        self.packet_tables = packet_tables
-        self._step = make_sharded_step(cfg, self.mesh,
-                                       packet_tables=packet_tables)
+        self.traversal = traversal_for(list(self.mesh.devices.flat))
+        self._step = make_sharded_step(cfg, self.mesh)
         self.state = init_sharded_state(cfg, self.mesh)
         self._last_pose = None
         self._adaptive = cfg.adaptive_sampling == "on"
@@ -215,11 +166,7 @@ class ShardedRenderer:
             # per-strip priority rebuild: each shard ranks its own pixels
             # (local ids), so no cross-device data moves
             from ..adaptive import build_perm
-            try:
-                shard_map = jax.shard_map
-            except AttributeError:
-                from jax.experimental.shard_map import shard_map
-            self._build_perm = jax.jit(shard_map(
+            self._build_perm = jax.jit(jax.shard_map(
                 partial(build_perm, gamma=cfg.adaptive_gamma),
                 mesh=self.mesh, in_specs=(P(AXIS), P(AXIS), P()),
                 out_specs=P(AXIS)))

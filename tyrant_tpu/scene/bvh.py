@@ -1,4 +1,4 @@
-"""Binned-SAH BVH builder + TPU-friendly threading.
+"""Binned-SAH BVH builder + per-octant threaded links.
 
 Builder semantics mirror the reference's PBRT-derived builder
 (bvh.cpp:61-212, parameters bvh.h:76-84): depth-first node layout with the
@@ -13,16 +13,18 @@ Deliberate deviations (documented per SURVEY.md §7):
     are degenerate (bvh.cpp:101-109).  We split such ranges at the median
     instead so every leaf holds <= ``BVHConfig.max_prims_per_leaf``
     primitives (6; the reference uses 4) — the fixed-width leaf test
-    is what lets the TPU traversal intersect exactly LEAF_WIDTH padded
+    is what lets the cascade traversal intersect exactly LEAF_WIDTH padded
     triangle slots per leaf visit with no data-dependent loop.
   * ``PartitionAlgorithm::Middle`` is unimplemented in the reference
     (bvh.cpp:190-193 errors out); we do not carry it.
 
 On top of the classic layout we precompute *threaded links* (hit/miss
 "escape" pointers) per direction octant.  The CUDA traversal keeps a 64-entry
-per-thread stack (bvh.h:124); per-lane stacks are hostile to a 8x128-lane
-VPU, so the TPU traversal is stackless: each ray carries only a current-node
-index, and the next node on box-hit/box-miss is a table lookup.  Ordered
+per-thread stack (bvh.h:124); both traversals here are stackless instead:
+each ray carries only a current-node index, and the next node on
+box-hit/box-miss is a table lookup (the dense cascade of ops/traverse.py
+has no per-lane stack, and the CUDA kernels of ops/cuda follow the same
+links).  Ordered
 (near-child-first) traversal is preserved exactly because the visit order
 under a fixed direction octant is static — the same front-to-back ordering
 the reference picks dynamically via ``dirIsNeg[splitAxis]`` (bvh.h:146-152).

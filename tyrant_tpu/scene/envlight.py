@@ -2,10 +2,9 @@
 
 With an environment map, the miss path is the dominant light source, and
 BSDF-only sampling of a map with small bright regions (a sun in an HDRI)
-is noise city.  The classic fix is texel importance sampling; the
-TPU-friendly spelling is an **alias table** — O(1) draws, exactly ONE row
-gather per NEE sample (a CDF binary search would pay the ~12 ms/2M gather
-wall log(N) times, scripts/gather_micro.py).
+is noise city.  The classic fix is texel importance sampling, spelled
+here as an **alias table** — O(1) draws, exactly ONE row gather per NEE
+sample (a CDF binary search would pay a gather log(N) times).
 
 Host build (this module):
   * per-texel probability  p ∝ luminance × sin(θ_row)  (solid-angle

@@ -5,24 +5,13 @@ only); production scenes repeat geometry — N trees, K chairs — under affine
 transforms.  Classic GPU renderers answer with a two-level TLAS/BLAS whose
 inner traversal re-enters a per-instance BVH in object space.
 
-The TPU-native answer here is **world-space flattening**: transform every
-instance's triangles on the host and build ONE flat BVH over the union.
-Rationale (docs/PERFORMANCE.md, round-3 measurements):
-
-  * the packet kernel's whole advantage is that the scalar core walks ONE
-    fat-row table with zero per-ray gathers; a TLAS hop would insert a
-    per-packet object-space re-transform (origin/direction rewrite mid-
-    traversal) and a second table, both hostile to the 8x128 lock-step
-    packet and to Mosaic's static-shape constraints;
-  * instanced rays lose packet coherence at the instance boundary anyway —
-    the union-visit blowup measured for carried bounces applies;
-  * flattening costs host memory (T_total triangles) but the fat-row table
-    already inlines triangles per leaf, so device memory is the same per
-    *visited* triangle, and the SAH builder handles 1M+ triangles in ~1.5 s
-    (native/bvh_builder.cpp).
-
-For moderate instance counts (up to a few million total triangles) this is
-strictly faster at render time than any two-level scheme on this hardware.
+The answer here is **world-space flattening**: transform every instance's
+triangles on the host and build ONE flat BVH over the union.  Both
+traversals (the cascade and the CUDA kernels) then walk one table with no
+object-space re-transform mid-traversal; flattening costs memory for
+T_total triangles, and the native SAH builder handles 1M+ triangles in
+about a second (native/bvh_builder.cpp).  A two-level scheme would be
+worth measuring for scenes with very many instances.
 
 ``Transform`` is any [4,4] or [3,4] affine matrix (row-major, points as
 column vectors: world = A @ obj + t).  Normals transform by the

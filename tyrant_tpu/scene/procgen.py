@@ -1,7 +1,7 @@
 """Procedural benchmark meshes.
 
 The reference benchmarks on ``castle.ply`` which is a missing large blob
-(.MISSING_LARGE_BLOBS, SURVEY.md C16), so the TPU build ships a deterministic
+(.MISSING_LARGE_BLOBS, SURVEY.md C16), so this build ships a deterministic
 procedural generator instead: a fractal-noise terrain with optional box
 "towers" — castle-ish occlusion structure at any triangle budget up to the
 1M-triangle benchmark target (BASELINE.md).

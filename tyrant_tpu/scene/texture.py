@@ -2,8 +2,7 @@
 
 The reference has no texture support at all (every triangle shades as white
 diffuse, kernel.cu:380-384); this is a beyond-reference production feature.
-The TPU-first design constraint is the gather wall: a 2M-row gather costs
-~11-18 ms on v5e regardless of row width (scripts/gather_micro.py), so
+The design keeps the gathers per shaded ray few, so
 
   * all textures are packed into ONE flat texel buffer ``data [N+1, 4]``
     (rgb + pad) addressed by a single linear index — one gather per tap;

@@ -1,21 +1,24 @@
 """Profiling helpers: JAX profiler traces + per-stage timing.
 
 The reference times whole frames with one cudaDeviceSynchronize per frame
-(kernel.cu:733, SURVEY.md §5).  On TPU the equivalents are XLA profiler
+(kernel.cu:733, SURVEY.md §5).  Here the equivalents are JAX profiler
 traces and block_until_ready-bracketed stage timing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import time
 
 import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/tyrant_trace"):
+def trace(log_dir: str | None = None):
     """Capture a jax profiler trace viewable in TensorBoard / Perfetto."""
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "tyrant_trace")
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
@@ -24,8 +27,8 @@ def trace(log_dir: str = "/tmp/tyrant_trace"):
 
 
 def time_blocked(fn, *args, reps: int = 3, warmup: int = 1, **kw):
-    """Median wall time of fn(*args) with device sync (the TPU analog of the
-    reference's sync-then-time, performance_measure.cpp:24-31)."""
+    """Median wall time of fn(*args) with device sync (the reference's
+    sync-then-time, performance_measure.cpp:24-31)."""
     for _ in range(warmup):
         out = fn(*args, **kw)
     jax.block_until_ready(out)
@@ -45,7 +48,7 @@ def stage_profile(renderer, camera, n_steps: int = 5) -> dict:
 
     Uses a non-donating jit of render_step for the full-step number:
     renderer._step donates its input buffers, so calling it repeatedly with
-    the same state would fail with 'array has been deleted' on TPU and
+    the same state would fail with 'array has been deleted' and
     invalidate renderer.state."""
     from functools import partial
 
@@ -56,32 +59,27 @@ def stage_profile(renderer, camera, n_steps: int = 5) -> dict:
     cam = camera.to_device(cfg)
     state = renderer.state
     scene = renderer.scene
-    tables = getattr(renderer, "packet_tables", None)
+    traversal = renderer.traversal
 
     raygen = jax.jit(lambda: _raygen(cfg, cam, state.start_position,
                                      state.frame, cfg.height, 0))
     t_raygen, gen = time_blocked(raygen, reps=n_steps)
 
-    from ..render import _pick_wave
-    wave = _pick_wave(cfg, tables)
-
-    extend = jax.jit(lambda o, d: _intersect_scene(
-        o, d, scene, packet_tables=tables, wave=wave))
+    extend = jax.jit(lambda o, d: _intersect_scene(o, d, scene, traversal))
     t_extend, ext = time_blocked(extend, gen["origin"], gen["direction"],
                                  reps=n_steps)
 
-    shade = jax.jit(lambda rays, t, i, tri, tn: _shade(
+    shade = jax.jit(lambda rays, t, i, tri: _shade(
         cfg, scene, renderer.sky_params, renderer.sun_dir, rays, t, i, tri,
-        state.frame, tri_normal=tn))
+        state.frame))
     t_shade, sh = time_blocked(shade, gen, *ext, reps=n_steps)
 
-    connect = jax.jit(lambda s: _connect(scene, s, packet_tables=tables,
-                                         wave=wave))
+    connect = jax.jit(lambda s: _connect(scene, s, traversal))
     t_connect, _ = time_blocked(connect, sh[4], reps=n_steps)
 
     full = jax.jit(partial(render_step, cfg=cfg,
                            sky_params=renderer.sky_params,
-                           packet_tables=tables))
+                           traversal=traversal))
     step = lambda: full(state, scene, cam, renderer.sun_dir)
     t_full, _ = time_blocked(step, reps=n_steps)
 
